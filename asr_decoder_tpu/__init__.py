@@ -1,6 +1,6 @@
-"""asr_decoder_tpu — a TPU-native streaming speech-recognition decoding framework.
+"""asr_decoder_tpu — a batched streaming speech-recognition decoding framework.
 
-A ground-up JAX/XLA/Pallas re-design of the capabilities of the reference
+A ground-up JAX/XLA re-design of the capabilities of the reference
 C++ online ASR decoder (datemoon/ASR-decoder): feature extraction, VAD,
 acoustic-model forward, WFST frame-synchronous beam search with lattice
 generation, lattice post-processing (determinize / n-best / rescoring),
@@ -11,7 +11,7 @@ Layering (mirrors reference layers L0..L8, see SURVEY.md):
   fst/       - CSR WFST + lattice kernel              (ref: src/newfst)
   frontend/  - fbank / pitch feature frontend         (ref: src/nnet feat, src/pitch)
   models/    - acoustic model runtime                 (ref: src/nnet, src/hmm)
-  ops/       - Pallas/XLA device kernels (search, am) (ref: src/my-decoder hot loops)
+  ops/       - XLA device search + gathers            (ref: src/my-decoder hot loops)
   decoder/   - beam-search sessions, offline+online   (ref: src/my-decoder, src/kaldi-nnet3)
   lm/        - ARPA LM, diff-LM, rescoring            (ref: src/newlm, src/biglm)
   vad/       - energy + model VAD, smoothing          (ref: src/vad, src/online-vad)

@@ -18,6 +18,7 @@ import numpy as np
 from asr_decoder_tpu.cli._model import build_info, register_info_flags
 from asr_decoder_tpu.serving.session import OnlineDecoderSession
 from asr_decoder_tpu.utils.config import ConfigOptions
+from asr_decoder_tpu.utils.device import enable_compile_cache
 from asr_decoder_tpu.utils.wer import WerStats, score_pair
 
 
@@ -42,6 +43,7 @@ def main(argv: list[str] | None = None) -> int:
                   "Print per-word time spans (AlignTime) per utterance",
                   bool)
     pos = opts.parse(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache()
     if len(pos) != 4:
         print(opts.usage(), file=sys.stderr)
         return 2

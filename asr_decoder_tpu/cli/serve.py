@@ -8,6 +8,7 @@ import sys
 from asr_decoder_tpu.cli._model import build_info, register_info_flags
 from asr_decoder_tpu.serving.server import AsrServer, SocketConfig
 from asr_decoder_tpu.utils.config import ConfigOptions
+from asr_decoder_tpu.utils.device import enable_compile_cache
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -17,6 +18,7 @@ def main(argv: list[str] | None = None) -> int:
     sock.register(opts)
     dec, online, fbank, am, extra = register_info_flags(opts)
     pos = opts.parse(sys.argv[1:] if argv is None else argv)
+    enable_compile_cache()
     if len(pos) != 3:
         print(opts.usage(), file=sys.stderr)
         return 2

@@ -8,7 +8,7 @@ beam + max/min-active pruning, exact ε-closure, ForwardLink recording, raw
 lattice extraction with lattice-beam extra-cost pruning (ref PruneForwardLinks
 inl.h:483-577, GetRawLattice :869-977), and best path.
 
-It defines the semantics the TPU kernel (`ops/beamsearch.py`) must match:
+It defines the semantics the device search (`ops/beamsearch.py`) must match:
 per-frame order = emitting expansion → prune → ε-closure → prune, with
 pruning = "beam margin over best, capped at max_active, never below
 min_active".  (The reference's *adaptive* cutoff estimation, inl.h:139-245,

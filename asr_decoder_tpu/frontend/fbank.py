@@ -5,9 +5,9 @@ closed-source HTK-config extractor behind ``FeatureExtractor``
 (ref: src/nnet/FeatureExtractor.h:14-87 with conf src/nnet/fbanks.cfg:
 25 ms window / 10 ms shift / 40 chans / hamming / dither 0.1) and the Kaldi
 fbank used by the v1/v2 pipelines (ref: src/v1-asrbin/conf/fbank.80.conf,
-Kaldi OnlineNnet2FeaturePipeline) — re-designed TPU-first: the whole batch of
-waveforms becomes one framing gather + window multiply + rFFT + one
-[bins × fft] matmul on the MXU, jit/vmap/pjit-compatible.
+Kaldi OnlineNnet2FeaturePipeline) — re-designed for the device: the whole
+batch of waveforms becomes one framing gather + window multiply + rFFT + one
+[bins × fft] matmul, jit/vmap/pjit-compatible.
 
 Includes the streaming chunked wrapper (sample carry across calls — the
 ``ExtractFeat``/``ExtractFeat_Last`` contract) and exponential-forgetting

@@ -8,7 +8,7 @@ src/nnet/online_pitch.conf), the streaming wrapper (ref: ``StreamPitch``
 pitch-functions.h:432-520) and the resampler (ref: ``LinearResample``
 src/pitch/resample.h:124).
 
-TPU-first: the resampler is one strided convolution (MXU); NCCF for all
+Device-first: the resampler is one strided convolution; NCCF for all
 (frame, lag) pairs is one batched einsum; the per-frame Viterbi recurrence is
 a ``lax.scan`` whose step is a vectorized min-plus product over the lag
 transition matrix — no scalar loops anywhere.
@@ -304,7 +304,7 @@ class ArbitraryResample:
     ``sample_points``: output times in seconds.  Each output is a
     windowed-sinc (Hanning-windowed, ``num_zeros`` half-lobes) interpolation
     of the input at that time; evaluation is one dense [P, N] matmul so it
-    rides the MXU for batched inputs.
+    is one gemm for batched inputs.
     """
 
     def __init__(self, num_samples_in: int, samp_rate_in: float,

@@ -1,6 +1,6 @@
 """CLG-on-the-fly composite graph: CLG WFST ⊗ per-phone HMM sub-FSTs.
 
-TPU-native equivalent of the reference's ``ClgFst``
+Device-side equivalent of the reference's ``ClgFst``
 (ref: src/my-decoder/clg-fst.h:9-189): instead of pre-composing H with CLG
 into a monolithic HCLG, the search walks a *virtual* state space
 
@@ -11,7 +11,7 @@ into a monolithic HCLG, the search walks a *virtual* state space
 with ``offset = clg.num_arcs + 1`` (ref MapClgTokenStateId arithmetic,
 clg-fst.h:135-165).  Where the reference nests clg-arc × hmm-arc loops
 inside ProcessEmitting (online-clg-decoder-mempool-base.h:120-204), the
-TPU re-design flattens the composite into a *uniform* automaton over
+device re-design flattens the composite into a *uniform* automaton over
 virtual states that the dense beam kernel can expand with fixed-lane
 gathers:
 

@@ -4,8 +4,8 @@ The reference ships CTC decoding as token passing over a phone graph with
 blank handling in the decoder (ref: src/old-decoder/optimize-ctc-faster-
 decoder.h:63 blank-skip token passing; ilabel→pdf = ilabel-1 CTC mapping,
 src/nnet/nnet-nnet.h:212-233).  Here the CTC *topology* is compiled into the
-decode graph instead (the EESEN-style T∘L∘G construction), so the one TPU
-beam-search kernel decodes CTC models unchanged:
+decode graph instead (the EESEN-style T∘L∘G construction), so the one
+device beam-search kernel decodes CTC models unchanged:
 
   * word-loop G with unigram/bigram costs,
   * lexicon chains L (phones in, word out, word cost on the entry arc),

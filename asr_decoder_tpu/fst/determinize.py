@@ -8,7 +8,7 @@ lowest-cost ilabel alignment for each distinct word sequence; alignment
 strings are re-expanded as linear ε-olabel chains on the output (the
 reference's string-repository + MakeArc expansion).
 
-Host-side post-search pass (off the TPU hot path), pure Python over the
+Host-side post-search pass (off the device hot path), pure Python over the
 acyclic ``Lattice`` — subsets are exact, no approximation.  Raises
 ``DeterminizeError`` if the output would exceed ``max_states`` (the
 reference wrapper's guard).

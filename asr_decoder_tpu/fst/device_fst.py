@@ -1,6 +1,6 @@
-"""Device-resident decode graph: degree-bounded split CSR for TPU search.
+"""Device-resident decode graph: degree-bounded split CSR for the search.
 
-TPU-first re-design of the reference's arc iteration
+Device-first re-design of the reference's arc iteration
 (ref: src/newfst/arc-iter.h:10-43, src/my-decoder/online-decoder-base-inl.h:247-352):
 instead of per-token pointer walks, the search gathers fixed ``arc_lanes``
 arc slots per active token.  To make that exact for states whose out-degree

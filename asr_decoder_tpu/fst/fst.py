@@ -1,6 +1,6 @@
 """Immutable WFST decode graph as structure-of-arrays CSR.
 
-TPU-first re-design of the reference's static decode graph
+Device-first re-design of the reference's static decode graph
 (ref: src/newfst/optimize-fst.h:53-307).  Where the reference stores a
 pointer-linked ``State{arcs*,num_arcs}`` array, we store flat numpy arrays —
 ``arc_ilabel/arc_olabel/arc_weight/arc_dst`` plus ``state_offset`` — that can

@@ -1,11 +1,11 @@
 """Device-resident ARPA n-gram LM for in-search (BigLM) rescoring.
 
-TPU-native re-design of the reference's per-arc LM queries inside
+Device-side re-design of the reference's per-arc LM queries inside
 ``ProcessEmitting`` (ref: src/my-decoder/online-decoder-mempool-base-biglm.h:
 316-402 calling ``DiffArpaLm::GetArc`` → ``Fsa::GetArc`` backoff chasing,
 src/newlm/arpa2fsa.cc:244-262).  The reference binary-searches a per-state
 sorted arc list and chases backoffs in a data-dependent while loop — neither
-shape works on TPU.  Here the same automaton becomes three dense tables:
+shape works on the device.  Here the same automaton becomes three dense tables:
 
   * an open-addressing hash over all non-root arcs: row table
     ``i32[H, 4] = (key_state | key_word | dst | weight-bits)``, linear

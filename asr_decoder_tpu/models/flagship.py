@@ -8,7 +8,7 @@ layer zoo and trained with CTC (the reference ships CTC decoding support,
 ref: src/old-decoder CTC decoders).
 
 Includes the multi-chip training step used by ``__graft_entry__.py``:
-data-parallel over utterances (the TPU re-expression of the reference's
+data-parallel over utterances (the device re-expression of the reference's
 request-level thread pool parallelism, ref: src/service2/thread-pool.h) ×
 tensor-parallel over the output projection.
 """

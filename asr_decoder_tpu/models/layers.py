@@ -3,8 +3,8 @@
 Capability parity with the reference component zoo
 (ref: src/nnet/nnet-component.h:8-74, nnet-layer.h:12-268, lstm-layer.cc:34-89,
 tf-lstm-layer.cc:34-97, lstm-projected-layer.{h,cc}, nnet-simple-recurrent.cc:91-137),
-re-designed TPU-first: every layer maps [B, T, D] → [B, T, D'] with recurrence
-expressed as ``jax.lax.scan`` over time (batched, MXU-friendly gemms for the
+re-designed for the device: every layer maps [B, T, D] → [B, T, D'] with
+recurrence expressed as ``jax.lax.scan`` over time (batched gemms for the
 input projections computed for all frames at once — the same split the
 reference uses, gemm X→GIFO then per-frame recurrence).
 
@@ -125,7 +125,7 @@ def _lstm(layer: Layer, x, state):
     p = layer.params
     H = layer.output_dim
     use_phole = "phole_i" in p
-    # input contribution for all frames at once (one big MXU gemm)
+    # input contribution for all frames at once (one big gemm)
     gifo_x = jnp.einsum("btd,rd->btr", x, p["w_gifo_x"],
                         preferred_element_type=jnp.float32) + p["bias"]
 

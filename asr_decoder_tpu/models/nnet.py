@@ -9,7 +9,7 @@ softmax→(CTC-blank scale/saturate)→log→(−log prior), acoustic scale and 
 subsampling (ref: NnetForward::FeedForward nnet-nnet.cc:120-168 and
 NnetForwardOptions nnet-nnet.h:63-87).
 
-TPU-first: ``am_forward`` is a pure function [B,T,D] → [B,T',V] of a Layer
+Device-first: ``am_forward`` is a pure function [B,T,D] → [B,T',V] of a Layer
 pytree, jit/vmap/pjit-compatible, with explicit streaming state.
 """
 

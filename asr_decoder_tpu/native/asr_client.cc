@@ -1,6 +1,6 @@
 // Native streaming ASR client library (C ABI).
 //
-// TPU-framework port of the reference's client packaging: the reference
+// This framework's port of the reference's client packaging: the reference
 // ships a C++ client behind a C ABI (`libclient.so`, ref:
 // src/client/py-client/asr-client-api.h:10-24 TcpConnect/SendPack/
 // SendLastPack/GetResult) consumed by a ctypes Python client

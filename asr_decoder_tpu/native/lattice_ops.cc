@@ -2,7 +2,7 @@
 // framework's binary lattice format.
 //
 // The SURVEY §7 plan keeps the reference's irregular host-side lattice
-// algebra native in the TPU build (the reference implements it in C++ at
+// algebra native in this build (the reference implements it in C++ at
 // src/newfst/lattice-to-nbest.cc:15-147): this module is the hot
 // result-building step of the post-processing service — lattice bytes in,
 // ranked (words, ilabels, graph_cost, am_cost) out — with EXACTLY the

@@ -1,6 +1,6 @@
-"""Batched frame-synchronous WFST Viterbi beam search on TPU.
+"""Batched frame-synchronous WFST Viterbi beam search on the device.
 
-This is the TPU-native re-design of the reference decoder's hot loop —
+This is a data-parallel re-design of the reference decoder's hot loop —
 ``ProcessEmitting`` / ``ProcessNonemitting`` / ``GetCutoff`` / ``FindOrAddToken``
 (ref: src/my-decoder/online-decoder-base-inl.h:139-437).  Where the reference
 chases a HashList of token pointers per frame, this implementation keeps a
@@ -8,11 +8,9 @@ dense fixed-width token beam per utterance and turns each frame into a few
 large gathers, one sort, and one top-k — all batched over utterances and
 compiled by XLA into a single fused device program (``lax.scan`` over frames).
 
-Layout rule (the perf-critical design decision): every tensor on the hot path
-is 2-D ``[B, N]`` with N ≥ 1024 in the minor (lane) dimension.  TPU tiles are
-(8, 128); a 3-D ``[B, K, A]`` tensor with A = 8 arc lanes in the minor dim
-wastes 15/16 of every vector register and drives XLA into pathological
-layouts — measured 25× slower than the flattened form on v5e.
+Layout rule: every tensor on the hot path is 2-D ``[B, N]`` with the
+candidate axis flattened into the minor dimension (``[B, K*A]`` rather than
+``[B, K, A]`` with A = 8 arc lanes minor).
 
 Shapes (B = batch of utterances, K = beam width, A = arc lanes):
   * token arrays: ``tok_state i32[B,K]``, ``tok_cost f32[B,K]``
@@ -49,9 +47,8 @@ import numpy as np
 
 from asr_decoder_tpu.decoder.config import DecoderConfig
 from asr_decoder_tpu.fst.device_fst import DeviceFst
-from asr_decoder_tpu.ops.fetch import fetch_pages, pack_state_records
-from asr_decoder_tpu.ops.gather import _on_tpu as _on_tpu_backend
-from asr_decoder_tpu.ops.gather import batched_table_gather
+from asr_decoder_tpu.ops.gather import (batched_table_gather,
+                                        fetch_state_records)
 
 INF = jnp.inf
 NO_STATE = -1
@@ -64,14 +61,9 @@ CLO_BIT = 1 << 30       # v3 dst marker: destination state has ε-closure
 class GraphArrays(NamedTuple):
     """Device-resident graph: padded per-state arc-record tables.
 
-    Random arc access is the search's hot memory op; XLA's general gather is
-    near-scalar speed on TPU, but a *row* gather (whole padded record row per
-    beam state) runs ~10× faster.  So each state's out-arcs live in one
-    fixed-width **flat 2-D** row, field-major (field f at lanes
-    [f·L, (f+1)·L)): a [S, F·L] table gathers ~3× faster again than the
-    equivalent [S, F, L] layout — the TPU row gather is row-count-bound and
-    the 3-D minor dims push XLA off the vectorized path (measured 2.7 ms vs
-    0.97 ms for 65k rows on v5e).
+    Random arc access is the search's hot memory op, so each state's
+    out-arcs live in one fixed-width **flat 2-D** row, field-major (field f
+    at lanes [f·L, (f+1)·L)): one row gather per beam token reads them all.
 
       * ``em_rec  i32[S, 4·A]`` — emitting arcs: (dst | pdf | weight-bits |
         em-block arc index); padding lanes have dst = -1.
@@ -89,14 +81,13 @@ class GraphArrays(NamedTuple):
 
 class PackedGraph(NamedTuple):
     """v3 (relax_impl=topk) device graph: each state's full record —
-    emitting arcs AND ε-closure entries, field-major — packed into one
-    lane group of a 128-lane HBM page row (``ops/fetch.py``), so ONE
-    live-adaptive DMA fetch per relax stage serves both the emit and the
-    closure expansion.  Lane layout per state (A = arc lanes, C = closure
-    lanes): [em_dst·A | em_pdf·A | em_w·A | clo_dst·C | clo_w·C], dst
-    padding = -1.  Arc/entry ids are NOT stored — the host traceback
+    emitting arcs AND ε-closure entries, field-major — in one row of a
+    ``[S, lanes]`` table, so ONE row fetch per relax stage serves both the
+    emit and the closure expansion.  Lane layout per state (A = arc lanes,
+    C = closure lanes): [em_dst·A | em_pdf·A | em_w·A | clo_dst·C | clo_w·C],
+    dst padding = -1.  Arc/entry ids are NOT stored — the host traceback
     re-derives them from (state, lane) via the DeviceFst CSR offsets."""
-    pages: jax.Array       # i32[S_pages, 128]
+    records: jax.Array     # i32[S, lanes]
     start: jax.Array       # i32 scalar
     final_state: jax.Array # i32 scalar
 
@@ -132,8 +123,7 @@ def _pack_records(offset: np.ndarray, count: np.ndarray, lanes: int,
 
     Row layout per state: (dst lanes | field₁ lanes | field₂ lanes | ...)
     with padding lanes dst = -1; float fields are bit-cast to i32.  The
-    first *field* must be the dst array.  Flat 2-D rows keep the beam-state
-    row gather on XLA's vectorized path (see GraphArrays)."""
+    first *field* must be the dst array (see GraphArrays)."""
     S = len(offset)
     nf = len(fields)
     rec = np.zeros((S, nf, lanes), np.int32)
@@ -201,8 +191,8 @@ def _pad_block(offset: np.ndarray, count: np.ndarray, lanes: int,
 
 
 def packed_lanes(A: int, C: int) -> int:
-    """Per-state lane group for the packed page table (divisor of 128),
-    or 0 if the record does not fit one page row."""
+    """State-record width for the v3 table (32, 64 or 128 lanes), or 0 if
+    the record needs more than 128 lanes."""
     need = 3 * A + 2 * C
     for lanes in (32, 64, 128):
         if need <= lanes:
@@ -210,17 +200,8 @@ def packed_lanes(A: int, C: int) -> int:
     return 0
 
 
-def make_packed_graph(dev: DeviceFst, ilabel2pdf: np.ndarray,
-                      pack_pages: bool = True
-                      ) -> tuple[PackedGraph, int, int]:
-    """Build the v3 state-record table; returns (graph, states_per_page,
-    lanes).
-
-    ``pack_pages=True``: 128-lane page rows, several states per page — the
-    layout the DMA fetch kernel needs (HBM rows must be 128-lane tiles).
-    ``pack_pages=False``: a NARROW ``[S, lanes]`` table for the XLA-gather
-    fetch — XLA's TPU row gather is per-index-cost at narrow widths but
-    falls off a cliff on 128-lane rows (measured µs/row at [2M, 128])."""
+def make_packed_graph(dev: DeviceFst, ilabel2pdf: np.ndarray) -> PackedGraph:
+    """Build the v3 ``[S, lanes]`` state-record table."""
     assert dev.clo_offset is not None, "call dev.build_closure() first"
     ilabel2pdf = np.asarray(ilabel2pdf, np.int32)
     A = max(dev.max_em_degree, 1)
@@ -246,19 +227,11 @@ def make_packed_graph(dev: DeviceFst, ilabel2pdf: np.ndarray,
             _pad_block(dev.clo_offset, dev.clo_count, C, dev.clo_dst, -1),
             _pad_block(dev.clo_offset, dev.clo_count, C, dev.clo_weight, 0),
         ]
-    if pack_pages:
-        pages, spp = pack_state_records(blocks, lanes)
-    else:
-        pages = np.concatenate(
-            [b.view(np.int32) if b.dtype == np.float32 else b
-             for b in blocks], axis=1)
-        if pages.shape[1] < lanes:
-            pages = np.pad(pages, ((0, 0), (0, lanes - pages.shape[1])))
-        spp = 1
-    return (PackedGraph(pages=jnp.asarray(pages),
-                        start=jnp.int32(dev.start),
-                        final_state=jnp.int32(dev.final_state)),
-            spp, lanes)
+    records = np.concatenate(blocks, axis=1)
+    records = np.pad(records, ((0, 0), (0, lanes - records.shape[1])))
+    return PackedGraph(records=jnp.asarray(records),
+                       start=jnp.int32(dev.start),
+                       final_state=jnp.int32(dev.final_state))
 
 
 # ----------------------------------------------------------------------
@@ -269,8 +242,7 @@ def _lane_iota(N: int) -> jax.Array:
     return jax.lax.broadcasted_iota(jnp.int32, (1, N), 1)
 
 
-def _relax_and_prune(dst, cost, *, K, beam, min_active, gather_impl=None,
-                     extra_keys=()):
+def _relax_and_prune(dst, cost, *, K, beam, min_active, extra_keys=()):
     """Min-merge flat candidates by destination state, then prune.
 
     The segmented scatter-min: lexicographic sort by (dst, cost) with the
@@ -310,8 +282,8 @@ def _relax_and_prune(dst, cost, *, K, beam, min_active, gather_impl=None,
     cost_s = jnp.where(alive, cost_s, INF)
     neg, tk = jax.lax.top_k(-cost_s, K)          # [B,K]
     cost_k = -neg
-    state_k = batched_table_gather(sort_dst, tk, force=gather_impl)
-    win = batched_table_gather(idx_s, tk, force=gather_impl)
+    state_k = batched_table_gather(sort_dst, tk)
+    win = batched_table_gather(idx_s, tk)
     # adaptive beam: always keep the best min_active slots, beam-prune rest
     best = cost_k[:, :1]
     rank = _lane_iota(K)
@@ -321,7 +293,7 @@ def _relax_and_prune(dst, cost, *, K, beam, min_active, gather_impl=None,
     state_k = jnp.where(keep, state_k, NO_STATE)
     win = jnp.where(keep, win, 0)
     extras_k = tuple(
-        jnp.where(keep, batched_table_gather(e, tk, force=gather_impl), 0)
+        jnp.where(keep, batched_table_gather(e, tk), 0)
         for e in extras_s)
     return (state_k, cost_k, win, keep, *extras_k)
 
@@ -352,23 +324,19 @@ def _emit_stage_scoped(g: GraphArrays, state, cost, ll, *, cfg):
     validN = jnp.repeat(valid, A, axis=1)
     costN = jnp.repeat(cost, A, axis=1)
     amask = validN & (dstN >= 0)
-    am = batched_table_gather(ll, jnp.where(amask, pdf, 0),
-                              force=cfg["gather_impl"])
+    am = batched_table_gather(ll, jnp.where(amask, pdf, 0))
     candN = jnp.where(amask, costN + w - cfg["acoustic_scale"] * am, INF)
     dstN = jnp.where(amask, dstN, 0)
     state, cost, win, keep = _relax_and_prune(
-        dstN, candN, K=K, beam=cfg["beam"], min_active=cfg["min_active"],
-        gather_impl=cfg["gather_impl"])
+        dstN, candN, K=K, beam=cfg["beam"], min_active=cfg["min_active"])
     prev = jnp.where(keep, win // A, 0)
     aid = jnp.where(keep,
-                    batched_table_gather(aidN, win,
-                                         force=cfg["gather_impl"]),
+                    batched_table_gather(aidN, win),
                     ARC_STAY)
     return state, cost, prev, aid
 
 
-def _table_stage(rec, state, cost, *, K, beam, min_active,
-                 gather_impl=None):
+def _table_stage(rec, state, cost, *, K, beam, min_active):
     """One ε relaxation stage over a packed flat record table i32[S, 3·L]
     (closure entries or ε arcs): candidates = L table lanes per token plus a
     trailing per-token stay block.  Returns (state, cost, prev, aid) with
@@ -397,13 +365,11 @@ def _table_stage(rec, state, cost, *, K, beam, min_active,
     dst_all = jnp.concatenate([dN, jnp.where(valid, state, 0)], axis=1)
     cand_all = jnp.concatenate([candN, jnp.where(valid, cost, INF)], axis=1)
     state, cost, win, keep = _relax_and_prune(
-        dst_all, cand_all, K=K, beam=beam, min_active=min_active,
-        gather_impl=gather_impl)
+        dst_all, cand_all, K=K, beam=beam, min_active=min_active)
     is_stay = win >= N
     prev = jnp.where(keep, jnp.where(is_stay, win - N, win // L), 0)
     aid = jnp.where(keep & ~is_stay,
-                    batched_table_gather(eidxN, jnp.minimum(win, N - 1),
-                                         force=gather_impl),
+                    batched_table_gather(eidxN, jnp.minimum(win, N - 1)),
                     ARC_STAY)
     return state, cost, prev, aid
 
@@ -418,16 +384,14 @@ def _eps_stages(g: GraphArrays, state, cost, *, cfg):
         if cfg["C"] > 0:
             state, cost, prev, aid = _table_stage(
                 g.clo_rec, state, cost, K=K, beam=cfg["beam"],
-                min_active=cfg["min_active"],
-                gather_impl=cfg["gather_impl"])
+                min_active=cfg["min_active"])
             prevs.append(prev)
             aids.append(aid)
     else:
         for _ in range(cfg["E"]):
             state, cost, prev, aid = _table_stage(
                 g.eps_rec, state, cost, K=K, beam=cfg["beam"],
-                min_active=cfg["min_active"],
-                gather_impl=cfg["gather_impl"])
+                min_active=cfg["min_active"])
             prevs.append(prev)
             aids.append(aid)
     B = state.shape[0]
@@ -451,11 +415,10 @@ def _frame_step(g: GraphArrays, state, cost, ll, *, cfg):
 
 
 # ----------------------------------------------------------------------
-# v3 (relax_impl=topk) stages: top-k-first relax + live-adaptive page fetch
+# v3 (relax_impl=topk) stages: one state-record fetch + top-k-first relax
 # ----------------------------------------------------------------------
 
-def _relax_topk(dst, cost, *, K, beam, min_active, F, gather_impl,
-                clo_first=False):
+def _relax_topk(dst, cost, *, K, beam, min_active, F, clo_first=False):
     """Top-k-first min-merge + prune (the v3 `FindOrAddToken`+`GetCutoff`).
 
     Instead of sorting the full [B, N] candidate field by destination
@@ -473,114 +436,86 @@ def _relax_topk(dst, cost, *, K, beam, min_active, F, gather_impl,
     lowest flat candidate index — the reference's first-writer-wins.
 
     Returns (state i32[B,K], cost f32[B,K], fi i32[B,K] flat candidate
-    index (0 where dead), alive bool[B,K], live i32[B]).  Output is
-    cost-sorted ⇒ live-prefix (dead slots last), which the page fetch of
-    the NEXT stage relies on for its dynamic DMA trip count.
+    index (0 where dead), alive bool[B,K], live i32[B]).  Live tokens form
+    a prefix of the beam (dead slots last).
     """
     B, N = dst.shape
     KF = min(K * F, N)
     negc, fi = jax.lax.top_k(-cost, KF)
     cost_k = -negc
     dead = ~jnp.isfinite(cost_k)
-    dst_k = batched_table_gather(dst, jnp.where(dead, 0, fi),
-                                 force=gather_impl)
+    dst_k = batched_table_gather(dst, jnp.where(dead, 0, fi))
     dst_k = jnp.where(dead, BIG_STATE, dst_k)
-    # adaptive beam mask at candidate rank (ref GetCutoff)
-    best = cost_k[:, :1]
-    rank = _lane_iota(KF)
-    keep = ~dead & ((cost_k <= best + beam) | (rank < min_active))
-    cost_k = jnp.where(keep, cost_k, INF)
-    dst_k = jnp.where(keep, dst_k, BIG_STATE)
     # dedup by destination: narrow 3-key sort, first of segment wins
     d_s, c_s, fi_s = jax.lax.sort((dst_k, cost_k, fi), num_keys=3,
                                   is_stable=False)
     first = jnp.concatenate(
         [jnp.ones((B, 1), bool), d_s[:, 1:] != d_s[:, :-1]], axis=1)
     c_s = jnp.where(first & (d_s != BIG_STATE), c_s, INF)
-    # re-prune to K distinct (= live-prefix compaction).  With clo_first,
-    # tokens whose destination carries the CLO_BIT ε-presence marker sort
-    # to the FRONT of the beam, so the closure stage's page fetch runs a
-    # dynamic trip count of just those tokens.  Selection (which K
-    # survive) is ALWAYS by cost; the ε-grouping pass reorders only —
-    # the group key is the bare 0/1 bit so it cannot be swamped by cost
-    # magnitudes (a cost-weighted key breaks at beam≈1e9, leaving marked
-    # tokens outside the fetch prefix → garbage closure rows).
-    if clo_first and KF == K:
-        # every candidate survives: no cost selection needed, group only
-        bit_s = jnp.where(d_s != BIG_STATE, (d_s >> 30) & 1, 0)
-        val = jnp.where(jnp.isfinite(c_s), bit_s.astype(jnp.float32), -INF)
-        _, pos = jax.lax.top_k(val, K)
-        cost2 = batched_table_gather(c_s, pos, force=gather_impl)
-        alive = jnp.isfinite(cost2)
-        pos = jnp.where(alive, pos, 0)
-    elif clo_first:
-        negc2, pos1 = jax.lax.top_k(-c_s, K)          # select by cost
-        alive1 = jnp.isfinite(-negc2)
-        bit1 = batched_table_gather(
+    # re-prune to the best K distinct states (= live-prefix compaction)
+    # with the adaptive beam at DISTINCT-state rank, as v2 and the gold
+    # decoder do (ref GetCutoff): the best min_active states always stay
+    negc2, pos = jax.lax.top_k(-c_s, K)
+    cost2 = -negc2
+    alive = jnp.isfinite(cost2) & (
+        (cost2 <= cost2[:, :1] + beam) | (_lane_iota(K) < min_active))
+    if clo_first:
+        # tokens whose destination carries the CLO_BIT ε-presence marker
+        # move to the FRONT of the beam (the closure stage's marked tokens
+        # then form a prefix).  This reorders only; the group key is the
+        # bare 0/1 bit so it cannot be swamped by cost magnitudes (a
+        # cost-weighted key breaks at beam≈1e9)
+        bit = batched_table_gather(
             jnp.where(d_s != BIG_STATE, (d_s >> 30) & 1, 0),
-            jnp.where(alive1, pos1, 0), force=gather_impl)
-        val = jnp.where(alive1, bit1.astype(jnp.float32), -INF)
-        _, pos2 = jax.lax.top_k(val, K)               # group ε-first
-        pos = batched_table_gather(pos1, pos2, force=gather_impl)
-        cost2 = batched_table_gather(c_s, pos, force=gather_impl)
-        alive = jnp.isfinite(cost2)
-        pos = jnp.where(alive, pos, 0)
-    else:
-        negc2, pos = jax.lax.top_k(-c_s, K)
-        cost2 = -negc2
-        alive = jnp.isfinite(cost2)
-        pos = jnp.where(alive, pos, 0)
+            jnp.where(alive, pos, 0))
+        _, order = jax.lax.top_k(
+            jnp.where(alive, bit.astype(jnp.float32), -INF), K)
+        pos = batched_table_gather(pos, order)
+        cost2 = batched_table_gather(cost2, order)
+        alive = batched_table_gather(alive, order)
+    pos = jnp.where(alive, pos, 0)
     state2 = jnp.where(alive,
-                       batched_table_gather(d_s, pos, force=gather_impl),
+                       batched_table_gather(d_s, pos),
                        NO_STATE)
     fi2 = jnp.where(alive,
-                    batched_table_gather(fi_s, pos, force=gather_impl), 0)
+                    batched_table_gather(fi_s, pos), 0)
     cost2 = jnp.where(alive, cost2, INF)
     live = jnp.sum(alive, axis=1, dtype=jnp.int32)
     return state2, cost2, fi2, alive, live
 
 
-def _live_count(state):
-    return jnp.sum(state != NO_STATE, axis=1, dtype=jnp.int32)
-
-
 def _emit_stage_v3(pg: PackedGraph, state, cost, ll, *, cfg):
-    """ProcessEmitting, v3: ONE live-adaptive page fetch of each active
-    state's packed record, then top-k-first relax."""
+    """ProcessEmitting, v3: ONE row fetch of each active state's packed
+    record, then top-k-first relax."""
     with jax.named_scope("search/emit3"):
         K, A = cfg["K"], cfg["A"]
         B = state.shape[0]
         N = K * A
-        rows = fetch_pages(pg.pages, state, _live_count(state),
-                           cfg["spp"], cfg["lanes"], impl=cfg["fetch_impl"])
+        rows = fetch_state_records(pg.records, state)
         dstN = rows[:, :, 0 * A:1 * A].reshape(B, N)
         pdfN = rows[:, :, 1 * A:2 * A].reshape(B, N)
         wN = _bits_to_f32(rows[:, :, 2 * A:3 * A]).reshape(B, N)
-        valid = state != NO_STATE      # masks dead-slot garbage rows too
+        valid = state != NO_STATE      # dead slots read row 0: mask them
         validN = jnp.repeat(valid, A, axis=1)
         amask = validN & (dstN >= 0)
-        am = batched_table_gather(ll, jnp.where(amask, pdfN, 0),
-                                  force=cfg["gather_impl"])
+        am = batched_table_gather(ll, jnp.where(amask, pdfN, 0))
         candN = jnp.where(amask,
                           jnp.repeat(cost, A, axis=1) + wN
                           - cfg["acoustic_scale"] * am, INF)
         dstN = jnp.where(amask, dstN, BIG_STATE)
         state2, cost2, fi, alive, _ = _relax_topk(
             dstN, candN, K=K, beam=cfg["beam"],
-            min_active=cfg["min_active"], F=cfg["F"],
-            gather_impl=cfg["gather_impl"], clo_first=cfg["C"] > 0)
+            min_active=cfg["min_active"], F=cfg["F"], clo_first=cfg["C"] > 0)
         prev = jnp.where(alive, fi // A, 0)
         aid = jnp.where(alive, fi, ARC_STAY)
         return state2, cost2, prev, aid
 
 
 def _clo_stage_v3(pg: PackedGraph, state, cost, *, cfg):
-    """ProcessNonemitting, v3: fetch the post-emit states' pages — but only
-    for tokens whose state carries the CLO_BIT ε-presence marker (the emit
-    relax sorted them to the beam front, so the fetch trip count is just
-    the ε-bearing tokens, usually a small fraction on trie/HCLG graphs) —
-    then relax their precomputed ε-closure entries plus a per-token stay
-    block for every live token."""
+    """ProcessNonemitting, v3: fetch the post-emit states' records, relax
+    the precomputed ε-closure entries of the tokens whose state carries the
+    CLO_BIT ε-presence marker (usually a small fraction on trie/HCLG
+    graphs), plus a per-token stay block for every live token."""
     with jax.named_scope("search/eps3"):
         K, A, C = cfg["K"], cfg["A"], cfg["C"]
         B = state.shape[0]
@@ -588,13 +523,11 @@ def _clo_stage_v3(pg: PackedGraph, state, cost, *, cfg):
         valid = state != NO_STATE
         has_clo = valid & ((state >> 30) & 1).astype(bool)
         clean = jnp.where(valid, state & ~CLO_BIT, state)
-        live_clo = jnp.sum(has_clo, axis=1, dtype=jnp.int32)
-        rows = fetch_pages(pg.pages, clean, live_clo,
-                           cfg["spp"], cfg["lanes"], impl=cfg["fetch_impl"])
+        rows = fetch_state_records(pg.records, clean)
         dstN = rows[:, :, 3 * A:3 * A + C].reshape(B, N)
         wN = _bits_to_f32(rows[:, :, 3 * A + C:3 * A + 2 * C]).reshape(B, N)
-        # bit-free tokens' rows were never fetched (garbage): mask their
-        # candidate lanes by the marker, not by the fetched content
+        # bit-free tokens' closure lanes are padding: mask them by the
+        # marker
         validN = jnp.repeat(has_clo, C, axis=1)
         emask = validN & (dstN >= 0)
         candN = jnp.where(emask, jnp.repeat(cost, C, axis=1) + wN, INF)
@@ -605,8 +538,7 @@ def _clo_stage_v3(pg: PackedGraph, state, cost, *, cfg):
             [candN, jnp.where(valid, cost, INF)], axis=1)
         state2, cost2, fi, alive, _ = _relax_topk(
             dst_all, cand_all, K=K, beam=cfg["beam"],
-            min_active=cfg["min_active"], F=cfg["F"],
-            gather_impl=cfg["gather_impl"])
+            min_active=cfg["min_active"], F=cfg["F"])
         is_stay = fi >= N
         prev = jnp.where(alive, jnp.where(is_stay, fi - N, fi // C), 0)
         aid = jnp.where(alive & ~is_stay, fi, ARC_STAY)
@@ -787,8 +719,8 @@ class TpuBeamSearch:
             eps_iters = 0
         self.mode = mode
 
-        # relax implementation: v3 (topk + packed page fetch) needs the
-        # closure table and a state record that fits one page row
+        # relax implementation: v3 (topk + packed state records) needs the
+        # closure table and a state record of at most 128 lanes
         relax = cfg.relax_impl
         A = max(dev.max_em_degree, 1)
         C = dev.max_closure_size if mode == "closure" else 0
@@ -799,31 +731,20 @@ class TpuBeamSearch:
             relax = "topk" if v3_ok else "sort"
         elif relax == "topk":
             assert v3_ok, ("relax_impl=topk needs eps_mode=closure, a "
-                           "page-fit record (3A+2C<=128) and log_snapshots")
+                           "record of 3A+2C<=128 lanes and log_snapshots")
         self.relax_impl = relax
 
         K = min(cfg.beam_width, cfg.max_active)
         if relax == "topk":
-            # fetch auto rule (measured on v5e, tools/perf/bench_points.py):
-            # XLA's narrow row gather wins on small tables (~11 ns/idx at
-            # 200k rows) but degrades TLB-bound with table size (~50 ns at
-            # 2M); the per-row DMA pipeline is flat (~35 ns) AND fetches
-            # only live tokens — crossover ≈ 1M states
-            fetch = cfg.fetch_impl or (
-                "dma" if _on_tpu_backend() and dev.num_states >= 1_000_000
-                else "xla")
-            self.pgraph, spp, lanes = make_packed_graph(
-                dev, ilabel2pdf, pack_pages=(fetch == "dma"))
+            self.pgraph = make_packed_graph(dev, ilabel2pdf)
             self.graph = None
             self._static = tuple(sorted(dict(
-                K=K, A=A, C=C, spp=spp, lanes=lanes,
+                K=K, A=A, C=C,
                 F=int(cfg.topk_overfetch),
                 beam=float(cfg.beam),
                 min_active=int(cfg.min_active),
                 acoustic_scale=float(cfg.acoustic_scale),
                 log_snapshots=bool(cfg.log_snapshots),
-                gather_impl=cfg.gather_impl or None,
-                fetch_impl=fetch,
             ).items()))
             self.num_stages = 1 + int(C > 0)
         else:
@@ -839,7 +760,6 @@ class TpuBeamSearch:
                 min_active=int(cfg.min_active),
                 acoustic_scale=float(cfg.acoustic_scale),
                 log_snapshots=bool(cfg.log_snapshots),
-                gather_impl=cfg.gather_impl or None,
             ).items()))
             self.num_stages = 1 + (eps_iters if mode == "sweeps"
                                    else int(C > 0))

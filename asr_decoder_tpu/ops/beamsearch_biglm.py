@@ -1,6 +1,6 @@
 """BigLM in-search decoding: batched (fst_state, lm_state) pair beam search.
 
-TPU-native re-design of the reference's flagship decoder variant
+Device-side re-design of the reference's flagship decoder variant
 ``OnlineLatticeDecoderMempoolBaseBiglm``
 (ref: src/my-decoder/online-decoder-mempool-base-biglm.h:12-574): during the
 search every word-olabel arc additionally advances a *difference LM*
@@ -152,12 +152,10 @@ def _relax_pair(dst, cand, l1, l2, src, aid, *, cfg):
     gather back the per-winner backpointers."""
     state, cost, win, keep, l1k, l2k = _relax_and_prune(
         dst, cand, K=cfg["K"], beam=cfg["beam"],
-        min_active=cfg["min_active"], gather_impl=cfg["gather_impl"],
+        min_active=cfg["min_active"],
         extra_keys=(l1, l2))
-    prev = jnp.where(keep, batched_table_gather(
-        src, win, force=cfg["gather_impl"]), 0)
-    aidk = jnp.where(keep, batched_table_gather(
-        aid, win, force=cfg["gather_impl"]), ARC_STAY)
+    prev = jnp.where(keep, batched_table_gather(src, win), 0)
+    aidk = jnp.where(keep, batched_table_gather(aid, win), ARC_STAY)
     return state, cost, l1k, l2k, prev, aidk
 
 
@@ -181,8 +179,7 @@ def _emit_stage(g: BigLmGraphArrays, lm_tabs, state, cost, l1, l2, ll, *,
     l1N = jnp.repeat(l1, A, axis=1)
     l2N = jnp.repeat(l2, A, axis=1)
     amask = validN & (dstN >= 0)
-    am = batched_table_gather(ll, jnp.where(amask, pdf, 0),
-                              force=cfg["gather_impl"])
+    am = batched_table_gather(ll, jnp.where(amask, pdf, 0))
     candN = jnp.where(amask, costN + w - cfg["acoustic_scale"] * am, INF)
     dstN = jnp.where(amask, dstN, 0)
     olN = jnp.where(amask, olN, 0)
@@ -376,7 +373,6 @@ class TpuBigLmBeamSearch:
             beam=float(cfg.beam),
             min_active=int(cfg.min_active),
             acoustic_scale=float(cfg.acoustic_scale),
-            gather_impl=cfg.gather_impl or None,
             lm_lanes=int(cfg.lm_lanes),
             lm1_start=difflm.lm1.start, lm2_start=difflm.lm2.start,
             lm1_mask=difflm.lm1.mask, lm2_mask=difflm.lm2.mask,

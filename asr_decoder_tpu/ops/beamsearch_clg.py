@@ -1,9 +1,9 @@
 """CLG-on-the-fly batched beam search: decode CLG ⊗ HMM without HCLG.
 
-TPU-native re-design of the reference's CLG decoder
+Device-side re-design of the reference's CLG decoder
 (ref: src/my-decoder/online-clg-decoder-mempool-base.h:31-206 +
 clg-fst.h:9-189).  The reference nests clg-arc × hmm-arc loops inside
-ProcessEmitting; on TPU the composite is flattened into the uniform
+ProcessEmitting; on the device the composite is flattened into the uniform
 virtual automaton of ``fst/clg.py`` (HMM entry/exit as ε hops), so each
 stage stays a fixed-lane row-gather + relax over flat-2D candidates —
 the same shape as the HCLG kernel:
@@ -172,17 +172,14 @@ def _emit_stage(g: ClgGraphArrays, state, cost, ll, *, cfg):
     vN = jnp.repeat(state, Ah, axis=1)
     amask = in_hmmN & (delta >= 0)
     dstN = jnp.where(amask, vN + delta * offset, 0)
-    am = batched_table_gather(ll, jnp.where(amask, pdf, 0),
-                              force=cfg["gather_impl"])
+    am = batched_table_gather(ll, jnp.where(amask, pdf, 0))
     candN = jnp.where(amask, costN + w - cfg["acoustic_scale"] * am, INF)
     rowN = jnp.repeat(row, Ah, axis=1)
     state, cost, win, keep = _relax_and_prune(
-        dstN, candN, K=K, beam=cfg["beam"], min_active=cfg["min_active"],
-        gather_impl=cfg["gather_impl"])
+        dstN, candN, K=K, beam=cfg["beam"], min_active=cfg["min_active"])
     prev = jnp.where(keep, win // Ah, 0)
     aid = jnp.where(keep,
-                    batched_table_gather(rowN, win,
-                                         force=cfg["gather_impl"]) * Ah
+                    batched_table_gather(rowN, win) * Ah
                     + win % Ah,
                     ARC_STAY)
     return state, cost, prev, aid
@@ -228,11 +225,9 @@ def _eps_stage(g: ClgGraphArrays, state, cost, *, cfg):
          jnp.full((B, K), ARC_STAY, jnp.int32)], axis=1)
     state, cost, win, keep = _relax_and_prune(
         dst_all, cand_all, K=K, beam=cfg["beam"],
-        min_active=cfg["min_active"], gather_impl=cfg["gather_impl"])
-    prev = jnp.where(keep, batched_table_gather(
-        src_all, win, force=cfg["gather_impl"]), 0)
-    aid = jnp.where(keep, batched_table_gather(
-        aid_all, win, force=cfg["gather_impl"]), ARC_STAY)
+        min_active=cfg["min_active"])
+    prev = jnp.where(keep, batched_table_gather(src_all, win), 0)
+    aid = jnp.where(keep, batched_table_gather(aid_all, win), ARC_STAY)
     return state, cost, prev, aid
 
 
@@ -324,7 +319,6 @@ class TpuClgBeamSearch:
             min_active=int(self.config.min_active),
             acoustic_scale=float(self.config.acoustic_scale),
             log_snapshots=bool(self.config.log_snapshots),
-            gather_impl=self.config.gather_impl or None,
         ).items()))
         self.beam_width = K
         self.num_stages = 1 + eps_iters

@@ -1,11 +1,13 @@
 """Device mesh + sharding utilities.
 
-The TPU re-expression of the reference's parallelism inventory (SURVEY §2.10):
-request-level data parallelism (thread pool, ref: src/service2/thread-pool.h)
-becomes utterance-batch data parallelism over the ``dp`` mesh axis; the GPU
-dynamic batcher's device-level batching (ref: src/gpu-asr) becomes the same
-batch axis; model sharding (absent in the reference — CPU-sized nnets) is the
-``tp`` axis over wide projections for large AMs.
+The device re-expression of the reference's parallelism inventory
+(SURVEY §2.10): request-level data parallelism (thread pool, ref:
+src/service2/thread-pool.h) becomes utterance-batch data parallelism over
+the ``dp`` mesh axis; the GPU dynamic batcher's device-level batching (ref:
+src/gpu-asr) becomes the same batch axis; model sharding (absent in the
+reference — CPU-sized nnets) is the ``tp`` axis over wide projections for
+large AMs.  The mesh is a plain (dp × tp) grid: every card of a host reaches
+every other at the same rate, so its shape follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -2,8 +2,8 @@
 
 The reference scales serving with one pthread pool per CPU node behind an
 external balancer (ref: src/service2/thread-pool.h:33, --nthread=60..800,
-src/v2-asrbin/conf/v2-conf.txt); a TPU pod slice re-expresses that as one
-process per host, each owning the host's chips.
+src/v2-asrbin/conf/v2-conf.txt); a multi-host deployment re-expresses
+that as one process per host, each owning the host's cards.
 
 Architecture (and why it needs no cross-host collectives for dp serving):
 ``parallel/decode.py``'s dp decode is zero-collective SPMD — the graph is
@@ -93,8 +93,13 @@ def run_distributed_selftest(num_processes: int = 2,
     ``jax.distributed.initialize`` against a local coordinator, build the
     cross-host ``global_mesh``, and verify tp-sharded AM parity on their
     addressable shards (see ``_mh_worker``).  Returns the worker OK lines;
-    raises on any worker failure.  CPU-only — exercises the one code path
-    single-process simulation cannot (BASELINE config 5)."""
+    raises on any worker failure.  Exercises the one code path
+    single-process simulation cannot (BASELINE config 5).
+
+    This is the repo's only launcher of several JAX processes.  Its workers
+    pin themselves to the CPU backend (``_mh_worker``), so they never
+    compete for a card: a JAX process reserves most of a GPU's memory when
+    it first touches it, so each card keeps one process."""
     import socket
     import subprocess
     import sys

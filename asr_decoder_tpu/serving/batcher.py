@@ -8,7 +8,8 @@ conf: --max-batch-size=300 --num-channels=900, src/gpu-asr/conf/config.txt).
 Channel slots have an explicit acquire/release lifecycle, fixing the
 reference's corr-id reuse race (ref: gpu-asr/README "to do").
 
-TPU-first design: all per-channel device state lives in fixed-shape arenas —
+Device-first design: all per-channel device state lives in fixed-shape
+arenas —
 beam state i32/f32[B,K], LSTM carries f32[B,H] — and one jitted step advances
 every channel at once; idle channels ride along fully masked (frame_mask
 False ⇒ beam state provably unchanged; LSTM carries are where-merged back).

@@ -12,7 +12,7 @@ channels into one device dispatch
 (ref: src/gpu-asr/v1-gpu-kaldi-worker-pool.h:20-202, conf
 --max-batch-size=300 --num-channels=900, src/gpu-asr/conf/config.txt).
 
-TPU-first design: connections are asyncio coroutines (the reference's
+Device-first design: connections are asyncio coroutines (the reference's
 1-thread-per-connection becomes 1-coroutine-per-connection) that push PCM
 into per-connection channels of one ``BatchedStreamingDecoder`` arena; a
 single device-loop coroutine ticks the arena — every tick is ONE jitted

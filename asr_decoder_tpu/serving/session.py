@@ -8,7 +8,7 @@ partial/final text, n-best, lattice; endpoint detection; mid-stream
 re-initialisation after a VAD cut (``InitDecoding(frame_offset)``,
 ref: kaldi-online-nnet3-my-decoder.h:301-324).
 
-TPU-first design: all device work happens in fixed-shape jitted steps —
+Device-first design: all device work happens in fixed-shape jitted steps —
 features and AM run over fixed ``chunk_frames`` windows, the search advances
 through ``TpuBeamSearch.advance`` (one ``lax.scan`` dispatch per chunk) — so
 every session of a given model shares one compilation, and a server can run

@@ -1,6 +1,6 @@
 """V1 session: VAD *orchestrates* decoding — silence never reaches the AM.
 
-TPU-native re-design of the reference's ``V1AsrWorker`` orchestration
+Device-side re-design of the reference's ``V1AsrWorker`` orchestration
 (ref: src/v1-asr/kaldi-v1-asr-online.h:303-657): the VAD segments the PCM
 stream into SIL/AUDIO runs; only AUDIO samples are fed to the inner
 ``OnlineDecoderSession`` (fbank → AM → search), so silence costs zero

@@ -2,7 +2,7 @@
 
 The reference's tracing is wall-clock timers around decode calls
 (ref: src/util/util-time.h:8-23, src/v1-asr/v1-asr-task.h:117,188); the
-TPU build adds what SURVEY §5 calls for — device-level traces with named
+device build adds what SURVEY §5 calls for — device-level traces with named
 scopes visible in xprof/Perfetto.  ``scope(name)`` annotates jitted code
 (shows up per-op in the trace); ``trace(dir)`` captures a trace around any
 block (host + device timelines), viewable with xprof / tensorboard-profile.

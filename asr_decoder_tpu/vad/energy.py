@@ -8,7 +8,7 @@ sliding-window hysteresis smoothing (small window for sil→audio with ratio
 0.5, big window for audio→sil with ratio 0.8) → per-frame SIL/AUDIO decisions
 → compressed segments (``VadSeg``).
 
-TPU-first: energy + classification + window sums are batched array ops;
+Device-first: energy + classification + window sums are batched array ops;
 the hysteresis FSM is a ``lax.scan`` over frames, vmapped over the batch.
 A streaming wrapper keeps the reference's caches (sample carry, left/right
 context, window sums) across chunk calls with identical edge handling

@@ -8,7 +8,7 @@ per-frame silence probability into SIL/AUDIO segments
 segment post-ops ``CompressAlignVad`` / ``MergeSameAduio`` /
 ``CompressAlignVadAndRestrictMaxNosilFrame`` (ref: online-vad.h:170-232).
 
-TPU-first: the VAD nnet is the same Layer pytree as any AM (one batched
+Device-first: the VAD nnet is the same Layer pytree as any AM (one batched
 forward per chunk, shared compile), the probability→class map is an array
 op, and the hysteresis smoother is the jitted scan from vad/energy.py.
 """

@@ -6,7 +6,7 @@ AM's per-frame keyword-state posteriors against a keyword state template
 per-window wake judgement (ref: src/wakeup/wakeup-search.h:23
 ``WakeupSearch::{InputDataOneFrame,ProcessData,JudgeWakeup}``).
 
-TPU-first: the DTW recurrence is a ``lax.scan`` over frames whose carry is
+Device-first: the DTW recurrence is a ``lax.scan`` over frames whose carry is
 the whole DP column — each step is a vectorized 3-way min over template
 states (and over a batch of keywords/windows), so the device does B×S work
 per sequential step instead of the reference's scalar cell loop.

@@ -28,6 +28,9 @@ def main() -> None:
     from asr_decoder_tpu.decoder.config import DecoderConfig
     from asr_decoder_tpu.eval.harness import evaluate_wer, train_ctc_model
     from asr_decoder_tpu.eval.synth_task import SynthTask
+    from asr_decoder_tpu.utils.device import enable_compile_cache
+
+    enable_compile_cache()
 
     if quick:
         task = SynthTask(num_phones=8, num_words=12, feat_dim=12, seed=0)

@@ -1,10 +1,8 @@
-"""Parity tests: TPU beam-search kernel vs the host gold decoder.
+"""Parity tests: device beam search vs the host gold decoder.
 
 This is the framework's analogue of the reference's decoder-vs-Kaldi parity
 axis (SURVEY §4): same graph + same loglikes ⇒ same best path (exact, with
 beams wide enough that pruning never differs)."""
-
-import os
 
 import numpy as np
 import pytest
@@ -223,7 +221,7 @@ def test_relax_topk_clo_grouping_robust_to_huge_costs():
     """The ε-first re-prune groups CLO_BIT destinations at the beam front
     regardless of cost magnitude (a cost-weighted grouping key silently
     broke at beam≈1e9: marked tokens fell outside the closure-fetch
-    prefix and read unfetched rows on the DMA path)."""
+    prefix)."""
     import jax.numpy as jnp
     from asr_decoder_tpu.ops.beamsearch import CLO_BIT, _relax_topk
 
@@ -236,7 +234,7 @@ def test_relax_topk_clo_grouping_robust_to_huge_costs():
     for F in (1, 2):
         state, cost2, fi, alive, live = _relax_topk(
             jnp.asarray(dst), jnp.asarray(cost), K=K, beam=1e9,
-            min_active=0, F=F, gather_impl="xla", clo_first=True)
+            min_active=0, F=F, clo_first=True)
         state = np.asarray(state)[0]
         alive = np.asarray(alive)[0]
         bits = [(int(s) >> 30) & 1 if s >= 0 else -1 for s in state]
@@ -254,32 +252,24 @@ def test_relax_topk_clo_grouping_robust_to_huge_costs():
         assert got == want
 
 
-@pytest.mark.skipif(
-    not os.environ.get("ASR_TPU_TESTS"),
-    reason="real-chip test (set ASR_TPU_TESTS=1); the DMA fetch kernel "
-           "has no CPU lowering")
-def test_dma_fetch_decode_matches_xla_on_tpu():
-    """On the real chip, the Pallas DMA page-fetch path must decode
-    identically (words + costs) to the XLA-gather fetch path — validated
-    manually each round; this pins it whenever the suite runs on TPU."""
-    from asr_decoder_tpu.fst.synthetic import random_hclg
-    rng = np.random.default_rng(0)
-    fst = random_hclg(rng, num_states=30_000, num_ilabels=64,
-                      num_words=500)
-    dev = DeviceFst.build(fst, arc_lanes=8)
-    i2p = np.concatenate([[0], np.arange(64)]).astype(np.int32)
-    B, T = 4, 50
-    sc = rng.standard_normal((B, T, 64)) * 5
-    ll = (sc - np.log(np.exp(sc).sum(-1, keepdims=True))).astype(np.float32)
-    out = {}
-    for fetch in ("dma", "xla"):
-        cfg = DecoderConfig(beam=12.0, beam_width=512, arc_lanes=8,
-                            max_active=512, min_active=20,
-                            eps_mode="closure", relax_impl="topk",
-                            fetch_impl=fetch)
-        s = TpuBeamSearch(dev, i2p, cfg)
-        st, il, lg = s.decode(ll)
-        out[fetch] = s.traceback(st, il, lg, fst)
-    for a, b in zip(out["dma"], out["xla"]):
-        assert a["words"] == b["words"]
-        assert a["cost"] == pytest.approx(b["cost"], abs=1e-3)
+def test_relax_topk_min_active_counts_distinct_states():
+    """min_active keeps the best min_active DISTINCT destinations, as the
+    v2 relax and the gold decoder do (ref GetCutoff); counting duplicate
+    candidates instead let one state's duplicates use up min_active.
+    (K·F = 8 covers every candidate, so no duplicate crowding.)"""
+    import jax.numpy as jnp
+    from asr_decoder_tpu.ops.beamsearch import _relax_and_prune, _relax_topk
+
+    dst = np.array([[1, 1, 1, 2, 3, 4, 1, 2]], np.int32)
+    cost = np.array([[0.0, 0.1, 0.2, 5.0, 6.0, 7.0, 0.3, 5.5]], np.float32)
+    kw = dict(K=4, beam=0.5, min_active=3)
+    st3, c3, _, alive3, live3 = _relax_topk(
+        jnp.asarray(dst), jnp.asarray(cost), F=2, **kw)
+    st2, c2, _, keep2 = _relax_and_prune(
+        jnp.asarray(dst), jnp.asarray(cost), **kw)
+    got = sorted(zip(np.asarray(st3)[0][np.asarray(alive3)[0]].tolist(),
+                     np.asarray(c3)[0][np.asarray(alive3)[0]].tolist()))
+    want = sorted(zip(np.asarray(st2)[0][np.asarray(keep2)[0]].tolist(),
+                      np.asarray(c2)[0][np.asarray(keep2)[0]].tolist()))
+    assert got == want == [(1, 0.0), (2, 5.0), (3, 6.0)]
+    assert int(np.asarray(live3)[0]) == 3

@@ -113,7 +113,7 @@ def test_matches_reference_on_eval_task_graph(ref_binary):
 #     best + beam on both sides -> EXACT word/cost agreement is asserted.
 #   * min_active/max_active binding: the reference widens/tightens its
 #     cutoff to the nth_element cost +/- beam_delta (a 0.5 margin), while
-#     the TPU search keeps exactly the top-`rank` candidates; the margin
+#     the device search keeps exactly the top-`rank` candidates; the margin
 #     admits boundary tokens differently, so agreement is asserted as a
 #     bounded rate with near-identical costs on divergence.
 # ---------------------------------------------------------------------------
@@ -186,7 +186,7 @@ def test_pruned_parity_beam_binding(ref_binary, beam, seed):
 
 def test_pruned_parity_min_active_bounded_divergence(ref_binary):
     """min_active=200 binding on both sides: the reference widens its
-    cutoff to the 200th-token cost + beam_delta (0.5) while the TPU
+    cutoff to the 200th-token cost + beam_delta (0.5) while the device
     search keeps the top-200 candidate ranks exactly - boundary tokens
     admit differently, so agreement is a bounded rate; diverging
     utterances must still be within 1.5% total cost."""
@@ -208,7 +208,7 @@ def test_pruned_parity_min_active_bounded_divergence(ref_binary):
 
 def test_pruned_parity_max_active_binding_rate(ref_binary):
     """max_active binding (K=200 << in-beam set, flat posteriors): the
-    reference tightens to nth_element+beam_delta, the TPU search takes a
+    reference tightens to nth_element+beam_delta, the device search takes a
     dense top-K - documented approximation, bounded divergence rate."""
     num_labels = 48
     i2p = np.arange(num_labels + 1, dtype=np.int32)

@@ -238,8 +238,7 @@ def test_word_alignment_trie_graph_end_anchor():
     from asr_decoder_tpu.fst.device_fst import DeviceFst
     dev = DeviceFst.build(fst, arc_lanes=8)
     cfg = DecoderConfig(beam=1e9, beam_width=64, arc_lanes=8, max_active=64,
-                        min_active=4, eps_mode="closure",
-                        gather_impl="xla", fetch_impl="xla")
+                        min_active=4, eps_mode="closure")
     search = TpuBeamSearch(dev, np.asarray(i2p, np.int32), cfg)
     # posteriors spelling word 1 (phones 1,2) then word 3 (phone 3):
     # frames: p1 p1 p2 blank p3  → "1 3"

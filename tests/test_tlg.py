@@ -24,8 +24,7 @@ def _decode_phone_seq(fst, i2p, seq, num_phones):
         ll[0, t, p if p else 0] = 0.0
     dev = DeviceFst.build(fst, arc_lanes=16)
     cfg = DecoderConfig(beam=1e9, beam_width=512, arc_lanes=16,
-                        max_active=512, min_active=4, eps_mode="closure",
-                        gather_impl="xla", fetch_impl="xla")
+                        max_active=512, min_active=4, eps_mode="closure")
     search = TpuBeamSearch(dev, np.asarray(i2p, np.int32), cfg)
     st, il, lg = search.decode(ll)
     return search.traceback(st, il, lg, fst)[0]
